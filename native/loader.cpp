@@ -10,7 +10,7 @@
 // across hardware threads — the loader feeds jnp.asarray's host buffer
 // directly.
 //
-// Exposed via ctypes (vkvolume_tpu/io/native.py); build: make -C native
+// Exposed via ctypes (vkvolume/io/native.py); build: make -C native
 
 #include <algorithm>
 #include <cstdint>

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Merge docs/benchmarks_r2 CSVs with the reference CSVs and report the
+"""Merge the measured CSVs ($OURS_DIR, default docs/benchmarks) with the
+reference CSVs and report the
 transferable signals: per-config ESS speedup ratios (skipmode X vs 0),
 blocksize trends, and update-time comparisons. Markdown to stdout."""
 import csv
@@ -8,7 +9,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OURS = os.environ.get(
-    "OURS_DIR", os.path.join(REPO, "docs", "benchmarks_r3"))
+    "OURS_DIR", os.path.join(REPO, "docs", "benchmarks"))
 REF = "/root/reference/scripts"
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Regenerate docs/benchmarks_rN/COMPARISON.md from the measured CSVs and
+"""Regenerate <dir>/COMPARISON.md from the measured CSVs and
 the reference's checked-in CSVs (ratios between modes are the transferable
 signal — the reference GPU is unrecorded desktop hardware, BASELINE.md).
 
-Usage: python scripts/make_comparison.py [docs/benchmarks_r3]
+Usage: python scripts/make_comparison.py [docs/benchmarks]
 Reference CSVs are read from the repo snapshot in docs/ (copied from
 /root/reference/scripts at survey time) or REF_DIR.
 """
@@ -32,7 +32,7 @@ def load(path):
 
 
 def main():
-    out_dir = sys.argv[1] if len(sys.argv) > 1 else "docs/benchmarks_r3"
+    out_dir = sys.argv[1] if len(sys.argv) > 1 else "docs/benchmarks"
     out_dir = os.path.join(REPO, out_dir)
     ref_dir = os.environ.get("REF_DIR", "/root/reference/scripts")
 
@@ -46,7 +46,7 @@ def main():
     B = 4                                        # headline block size
 
     lines = [
-        "# Round-3 benchmark vs reference (ratios are the signal)",
+        "# Benchmark vs reference (ratios are the signal)",
         "",
         "Generated by `scripts/make_comparison.py` from the CSVs in this",
         "directory and the reference's checked-in results (1200x1200,",

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkvolume_tpu.accel import (
+from vkvolume.accel import (
     anisotropic_distance,
     axis_scan,
     brute_force_chebyshev,
@@ -16,7 +16,7 @@ from vkvolume_tpu.accel import (
     occupancy_map,
     occupied_voxel_count,
 )
-from vkvolume_tpu.tf import tf_params
+from vkvolume.tf import tf_params
 
 from util import random_blob_volume
 
@@ -160,7 +160,7 @@ def test_isotropic_edge_cases():
 def test_anisotropic_matches_brute_force(rng):
     # cap=255 = reference-exact octant values (the default ANISO_CAP only
     # shortens >cap leaps; its exact-min semantics are pinned in
-    # tests/test_distance_pallas.py::test_anisotropic_cap_semantics).
+    # test_anisotropic_cap_semantics).
     occ = _random_occ(rng, (6, 7, 8), 0.12)
     got = np.asarray(anisotropic_distance(jnp.asarray(occ), cap=255))
     assert got.shape == (8, 6, 7, 8)
@@ -172,6 +172,69 @@ def test_anisotropic_matches_brute_force(rng):
             got[idx], brute_force_chebyshev(occ, (sx, sy, sz)),
             err_msg=f"octant {idx}",
         )
+
+
+def _pairwise_chebyshev(occ, direction_xyz):
+    """The definition itself, one occupied cell at a time (tiny inputs)."""
+    out = np.full(occ.shape, 255, np.int32)
+    grid = np.indices(occ.shape)                      # z, y, x
+    sides = (direction_xyz[2], direction_xyz[1], direction_xyz[0])
+    for cell in np.argwhere(occ == 0):
+        delta = cell[:, None, None, None] - grid      # occupied - p
+        ok = np.ones(occ.shape, bool)
+        for d, s in zip(delta, sides):
+            if s:
+                ok &= (d == 0) | (np.sign(d) == s)
+        dist = np.abs(delta).max(axis=0)
+        out = np.where(ok, np.minimum(out, dist), out)
+    return out.astype(np.uint8)
+
+
+@pytest.mark.parametrize("direction", [(0, 0, 0), (1, -1, 1), (-1, 1, -1)])
+def test_brute_force_reference_matches_definition(rng, direction):
+    """The summed-area brute force (the reference every DT test trusts)
+    against the pairwise definition."""
+    occ = _random_occ(rng, (5, 6, 7), 0.08)
+    np.testing.assert_array_equal(brute_force_chebyshev(occ, direction),
+                                  _pairwise_chebyshev(occ, direction))
+
+
+# Shapes with long, short and uneven axes (a 140-cell x line, a 124-cell
+# z line), at the occupancy densities of real block maps.
+_DT_SHAPES = [((10, 20, 30), 0.07), ((13, 7, 140), 0.03),
+              ((124, 20, 16), 0.07)]
+
+
+@pytest.mark.parametrize("shape,p", _DT_SHAPES)
+def test_isotropic_matches_brute_force_uneven_shapes(rng, shape, p):
+    occ = _random_occ(rng, shape, p)
+    got = np.asarray(isotropic_distance(jnp.asarray(occ)))
+    np.testing.assert_array_equal(got, brute_force_chebyshev(occ))
+
+
+@pytest.mark.parametrize("shape,p", _DT_SHAPES)
+def test_anisotropic_matches_brute_force_uneven_shapes(rng, shape, p):
+    occ = _random_occ(rng, shape, p)
+    got = np.asarray(anisotropic_distance(jnp.asarray(occ), cap=255))
+    for idx in range(8):
+        sx = -1 if (idx & 4) else +1
+        sy = -1 if (idx & 2) else +1
+        sz = -1 if (idx & 1) else +1
+        np.testing.assert_array_equal(
+            got[idx], brute_force_chebyshev(occ, (sx, sy, sz)),
+            err_msg=f"octant {idx}")
+
+
+def test_anisotropic_cap_semantics(rng):
+    """distance.ANISO_CAP: one-sided octant maps hit 255 at axis-facing
+    boundaries, defeating max-bounded early exits. The cap must be EXACTLY
+    elementwise min(uncapped, cap): leaps stay conservative and the
+    occupied set is untouched."""
+    occ = _random_occ(rng, (24, 32, 40), 0.004)
+    full = np.asarray(anisotropic_distance(jnp.asarray(occ), cap=255))
+    capped = np.asarray(anisotropic_distance(jnp.asarray(occ), cap=15))
+    assert (full > 15).any()            # the cap actually binds here
+    np.testing.assert_array_equal(capped, np.minimum(full, 15))
 
 
 def test_anisotropic_no_less_than_isotropic(rng):

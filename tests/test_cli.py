@@ -1,12 +1,13 @@
-"""CLI surface (vkvolume_tpu/cli.py): the reference's volume_render
+"""CLI surface (vkvolume/cli.py): the reference's volume_render
 command line (src/volume_render.cpp:95 usage string) driven end-to-end —
 including MULTIPLE positional volume files, which composite in draw order
 (`<binary_volume_image>...`, loaded one node each at :186-242)."""
 
 import numpy as np
+import pytest
 
-from vkvolume_tpu.cli import build_parser, main, setup_engine
-from vkvolume_tpu.io import Header, save_volume
+from vkvolume.cli import build_parser, main, setup_engine
+from vkvolume.io import Header, save_volume
 
 from util import sphere_shell_volume
 
@@ -73,3 +74,20 @@ def test_setup_engine_per_volume_options(tmp_path):
     assert len(volumes) == 2
     volumes[0].options.intensity_min = 0.5
     assert volumes[1].options.intensity_min != 0.5
+
+
+@pytest.mark.parametrize("renderer", ["pallas", "xla"])
+def test_unknown_renderer_refused(renderer, capsys):
+    """Only the renderers the engine has are accepted; argparse exits with
+    its usage error before anything is loaded."""
+    with pytest.raises(SystemExit) as exc:
+        build_parser().parse_args(["--renderer", renderer])
+    assert exc.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
+
+
+def test_default_renderer_is_the_engines():
+    from vkvolume.engine.engine import DEFAULT_RENDERER, RENDERERS
+
+    assert build_parser().parse_args([]).renderer == DEFAULT_RENDERER
+    assert DEFAULT_RENDERER in RENDERERS

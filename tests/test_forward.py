@@ -4,13 +4,12 @@ scene+volume composite — the reference's optional Sponza pass
 src/volume_render_subpass.cpp:177-186)."""
 
 import numpy as np
-import jax.numpy as jnp
 
-from vkvolume_tpu.camera import orbit_camera
-from vkvolume_tpu.engine import Engine, RenderOptions, VolumeOptions, \
+from vkvolume.camera import orbit_camera
+from vkvolume.engine import Engine, RenderOptions, VolumeOptions, \
     from_array
-from vkvolume_tpu.options import SkippingType
-from vkvolume_tpu.render import forward
+from vkvolume.options import SkippingType
+from vkvolume.render import forward
 
 from util import sphere_shell_volume
 
@@ -119,39 +118,3 @@ def test_sponza_lite_scene_renders():
     assert (dep > 0).mean() > 0.5          # hall covers most of the frame
     assert np.isfinite(np.asarray(col)).all()
     assert dep.max() <= 1.0 + 1e-6
-
-
-def test_depth_frames_never_take_the_grid_sweep(monkeypatch):
-    """The w-grid sweep honors the scene-depth ENTRY test only via the
-    pixel mask, not the per-pixel EXIT clamp — depth-attachment frames
-    must not route through it (the banded XLA sweep / marcher march the
-    clamped intervals exactly)."""
-    from vkvolume_tpu.render import sweep_pallas as sp
-
-    n = 40
-    vol = sphere_shell_volume(n)
-    eng = Engine(RenderOptions(skipping_type=SkippingType.DISTANCE),
-                 renderer="pallas")
-    v = from_array(vol, VolumeOptions(intensity_min=0.1, gradient_min=0.0,
-                                      gradient_max=0.0), block_size=4)
-    v.set_scale((100.0 / n,) * 3)
-    eng.add_volume(v)
-    H, W = 32, 128
-    cam = orbit_camera(radius=220.0, azimuth_deg=0, elevation_deg=0,
-                       aspect=W / H)
-
-    calls = []
-    orig = sp._frame_jit
-    monkeypatch.setattr(sp, "_frame_jit",
-                        lambda *a, **k: calls.append(1) or orig(*a, **k))
-    eng.options.depth_attachment = True
-    # A depth surface cutting through the volume's middle.
-    depth = jnp.full((H, W), 0.5, jnp.float32)
-    out = eng.render(cam, W, H, depth_image=depth)
-    assert out is not None
-    assert not calls, "grid sweep must not render depth-clipped frames"
-    # Without the attachment option the depth image is ignored and the
-    # grid sweep stays the production path.
-    eng.options.depth_attachment = False
-    eng.render(cam, W, H)
-    assert calls

@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from vkvolume_tpu.io import Header, load_data, load_header, parse_header, save_volume
-from vkvolume_tpu.io.loader import normalise_to_u8
+from vkvolume.io import Header, load_data, load_header, parse_header, save_volume
+from vkvolume.io.loader import normalise_to_u8
 
 HEADER_TEXT = """832 832 494 # extents
 0.001 0.001 0.001 # voxel size

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from vkvolume_tpu.io import Header, save_volume
-from vkvolume_tpu.io import native
-from vkvolume_tpu.io.loader import normalise_to_u8
+from vkvolume.io import Header, save_volume
+from vkvolume.io import native
+from vkvolume.io.loader import normalise_to_u8
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native loader not built (make -C native)"

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkvolume_tpu.accel import isotropic_distance
-from vkvolume_tpu.options import SkippingType
-from vkvolume_tpu.parallel import make_mesh, march_sharded
+from vkvolume.accel import isotropic_distance
+from vkvolume.options import SkippingType
+from vkvolume.parallel import make_mesh, march_sharded
 
 from test_render import _march, _setup
 from util import sphere_shell_volume
@@ -71,62 +71,12 @@ def test_mesh_size_validation():
         )
 
 
-def test_sharded_render_frame_matches_single_device():
-    """The production path (w-grid sweep + warp) over the 8-device mesh:
-    grid rows sharded for the sweep, one all_gather, image rows sharded for
-    the warp — must reproduce the single-device render_frame exactly."""
-    from vkvolume_tpu.accel import occupancy_map
-    from vkvolume_tpu.camera import orbit_camera
-    from vkvolume_tpu.parallel import render_frame_sharded
-    from vkvolume_tpu.render import make_rays, make_uniforms
-    from vkvolume_tpu.render import sweep as sweep_mod
-    from vkvolume_tpu.render.sweep_pallas import render_frame
-    from vkvolume_tpu.tf import tf_params
-    from vkvolume_tpu.utils import math3d
-
-    vol = sphere_shell_volume(40)
-    tf = tf_params(intensity_min=0.1, gradient_min=0.0, gradient_max=0.0)
-    n = 40
-    node = math3d.scale((100.0 / n,) * 3)
-    img_t = math3d.scale((float(n),) * 3)
-    H, W = 64, 128
-    cam = orbit_camera(radius=150.0, azimuth_deg=25, elevation_deg=15,
-                       aspect=W / H)
-    u = make_uniforms(cam, node, img_t, 50.0, (4.0, 4.0, 4.0))
-    rays = make_rays(u, H, W)
-    m = -(-n // 4)
-    occ = occupancy_map(jnp.asarray(vol), None, tf, (m, m, m))
-    dist = isotropic_distance(occ)
-    pvm = jnp.asarray(
-        (cam.proj.astype(np.float64) @ cam.view.astype(np.float64)
-         @ (node @ img_t).astype(np.float64)).astype(np.float32))
-    p = sweep_mod.principal_axis(rays)
-    vol_t = sweep_mod.transpose_for_axis(jnp.asarray(vol), p)
-    dist_t = sweep_mod.transpose_for_axis(dist, p)
-
-    single = render_frame(vol_t, dist_t, tf, rays, u, pvm, p_axis=p,
-                          ert=True, interpret=True, dist_leap=True)
-    mesh = make_mesh(8)
-    sharded = render_frame_sharded(
-        mesh, vol_t, dist_t, tf, rays, u, pvm, p_axis=p, ert=True,
-        interpret=True, dist_leap=True)
-    assert np.asarray(single.color)[..., 3].max() > 0.3   # non-trivial
-    # ~1e-6-level drift from per-device reduction order in the sweep's
-    # f32 ray setup; far below the u8 resample tolerance.
-    np.testing.assert_allclose(np.asarray(sharded.color),
-                               np.asarray(single.color), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(sharded.depth),
-                               np.asarray(single.depth), atol=1e-4)
-    shard_devs = {sh.device for sh in sharded.color.addressable_shards}
-    assert len(shard_devs) == 8
-
-
 def test_volume_sharded_march_close_to_single_device():
     """Volume-sharded (TP analogue): z-slabs with halo planes per device,
     rays replicated, per-segment marches composed with the over operator in
     ray order. Segment sample phases differ from the single-device march, so
     parity is at resample tolerance (like the plane-sweep renderers)."""
-    from vkvolume_tpu.parallel import march_volume_sharded
+    from vkvolume.parallel import march_volume_sharded
 
     vol = sphere_shell_volume(32)
     s = _setup(vol, size=24)
@@ -153,7 +103,7 @@ def test_volume_sharded_march_close_to_single_device():
 
 def test_volume_sharded_march_skipmode_none():
     """TP mode without acceleration maps (skipping NONE)."""
-    from vkvolume_tpu.parallel import march_volume_sharded
+    from vkvolume.parallel import march_volume_sharded
 
     vol = sphere_shell_volume(32)
     s = _setup(vol, size=16)
@@ -171,61 +121,6 @@ def test_volume_sharded_march_skipmode_none():
     assert np.abs(a - b).max() < 0.06
 
 
-@pytest.mark.parametrize("ert", [False, True])
-def test_volume_sharded_production_sweep(ert):
-    """TP production path (parallel.sweep_volume_sharded): per-device
-    plane slabs through the UNCHANGED brick kernel in rebased local
-    texture space, over-composed in slab order — must match the
-    single-device brick sweep of the same plan (exactly up to f32
-    rebasing; with ERT, up to the (1-alpha) <= 0.01 cross-shard tail)."""
-    from test_sweep import _frame_setup
-
-    from vkvolume_tpu.parallel import sweep_volume_sharded
-    from vkvolume_tpu.render import sweep_bricks as sb
-    from vkvolume_tpu.render import sweep_pallas as sp
-
-    vol_t, grad_t, dist_t, tf, rays, u, pvm, p = _frame_setup(25.0)
-    H, W = rays.valid.shape
-    Np, Sv, Su = vol_t.shape
-
-    mesh = make_mesh(8)
-    out = sweep_volume_sharded(
-        mesh, vol_t, dist_t, tf, u, pvm,
-        p_axis=p, height=H, width=W, ert=ert, interpret=True,
-        dist_leap=True)
-
-    # Single-device reference with the IDENTICAL plan and grid fields.
-    view, plan = sp.select_view_plan(u, H, W, lambda q: (Np, Sv, Su))
-    assert plan.get("R_brick") is not None
-    sgn = 1 if plan["sgn_p"] > 0 else -1
-    Hi, Wi = plan["Hi"], plan["Wi"]
-    gyi = jax.lax.broadcasted_iota(jnp.float32, (Hi, Wi), 0)
-    gxi = jax.lax.broadcasted_iota(jnp.float32, (Hi, Wi), 1)
-    wu_g = sp._mob_fwd(plan["wu0"], plan["dwu"], plan.get("cu") or 0.0,
-                       gxi + 0.5)
-    wv_g = sp._mob_fwd(plan["wv0"], plan["dwv"], plan.get("cv") or 0.0,
-                       gyi + 0.5)
-    grid = sb.grid_fields(u, wu_g, wv_g, sgn, p, max(Np, Sv, Su), Np)
-    ref = sb._sweep_bricks_jit(
-        vol_t, dist_t, tf, None, u, pvm, None,
-        (wu_g, wv_g) + grid[:2] + grid[3:4] + grid[2:3],
-        p_axis=p, R=plan["R_brick"], ert=ert, test=None,
-        count_samples=False, n_slabs=Np, sgn=sgn,
-        tile_h=plan["tile_h"], span_blks=plan["span_blks"],
-        rect_w=plan.get("rect_w", 256), interpret=True, dist_leap=True)
-
-    rc = np.asarray(ref.color)
-    oc = np.asarray(out.color)
-    assert rc[..., 3].max() > 0.3
-    tol = 0.011 if ert else 2e-3
-    assert np.abs(oc - rc).max() < tol, np.abs(oc - rc).max()
-    # Depth: nearest hit must survive the fold (hit sets only).
-    rd, od = np.asarray(ref.depth), np.asarray(out.depth)
-    m = (rd != 0) & (od != 0)
-    np.testing.assert_allclose(od[m], rd[m], atol=1e-3)
-    assert ((rd != 0) == (od != 0)).mean() > 0.995
-
-
 def test_volume_sharded_ert_worst_case_bound():
     """The TP path's cross-shard ERT divergence is a derived GUARANTEE,
     not an observed tolerance: the single-device march stops a ray once
@@ -237,7 +132,7 @@ def test_volume_sharded_ert_worst_case_bound():
     adversarial volume: fully opaque content everywhere (ERT fires in
     the first shard; maximal bright content hides behind it in the
     other 7 shards)."""
-    from vkvolume_tpu.parallel import march_volume_sharded
+    from vkvolume.parallel import march_volume_sharded
 
     vol = np.full((32, 32, 32), 255, np.uint8)   # worst case: all-bright
     s = _setup(vol, size=24)

@@ -1,18 +1,15 @@
-"""Host-analytic view analysis (render/plan.py) against the on-device
-reductions it replaces: the analytic ranges must CONTAIN the device-measured
-ranges (conservative) while staying within a small factor of them, and the
-per-tile span bounds must dominate the measured spans (the kernel footprint
-limits silently corrupt pixels if underestimated)."""
+"""Host-analytic view analysis (render/plan.py) against the same
+quantities reduced from the device ray field (render/ray_setup.make_rays):
+the principal axis, its direction sign, and mixed-sign detection."""
 
 import numpy as np
 import pytest
 
-from vkvolume_tpu.camera import orbit_camera, perspective_camera
-from vkvolume_tpu.render import make_rays, make_uniforms
-from vkvolume_tpu.render import plan as plan_mod
-from vkvolume_tpu.render import sweep as sweep_mod
-from vkvolume_tpu.render import sweep_pallas as sp
-from vkvolume_tpu.utils import math3d
+from vkvolume.camera import orbit_camera, perspective_camera
+from vkvolume.render import make_rays, make_uniforms
+from vkvolume.render import plan as plan_mod
+from vkvolume.render import sweep as sweep_mod
+from vkvolume.utils import math3d
 
 CAMS = [
     orbit_camera(radius=220.0, azimuth_deg=30, elevation_deg=20, aspect=1.0),
@@ -41,28 +38,14 @@ def test_analytic_view_contains_device_stats(ci):
     rays = make_rays(u, H, W)
     p_dev = sweep_mod.principal_axis(rays)
     assert view["p_axis"] == p_dev
+    assert not sweep_mod.mixed_principal_signs(rays, p_dev)
 
-    st = sp.stats_to_dict(sp._plan_stats_jit(rays, p_dev))
-    # Ranges: analytic must contain the measured range...
-    assert view["wu_lo"] <= st["wu_lo"] + 1e-6
-    assert view["wu_hi"] >= st["wu_hi"] - 1e-6
-    assert view["wv_lo"] <= st["wv_lo"] + 1e-6
-    assert view["wv_hi"] >= st["wv_hi"] - 1e-6
-    # ...without being uselessly loose (cube-corner bound is near-tight).
-    meas_w = max(st["wu_hi"] - st["wu_lo"], 1e-6)
-    assert (view["wu_hi"] - view["wu_lo"]) <= 3.0 * meas_w + 0.1
-    meas_v = max(st["wv_hi"] - st["wv_lo"], 1e-6)
-    assert (view["wv_hi"] - view["wv_lo"]) <= 3.0 * meas_v + 0.1
-
-    # Tile-span bounds must dominate the measured per-tile spans.
-    assert view["span_wu"] >= st["span_wu"] * 0.999
-    assert view["span_wv"] >= st["span_wv"] * 0.999
-
-    # Medians within a small factor (they only size the grid).
-    assert 0.3 * st["du_q"] <= view["du_q"] <= 3.0 * st["du_q"]
-    assert 0.3 * st["dv_q"] <= view["dv_q"] <= 3.0 * st["dv_q"]
-
-    assert np.sign(view["sgn"]) == np.sign(st["sgn"] if st["sgn"] != 0 else 1)
+    # Direction sign along the sweep axis, reduced over the valid rays.
+    d_p = np.asarray(rays.ray_dir)[..., p_dev]
+    valid = np.asarray(rays.valid)
+    assert valid.any()
+    assert view["sgn"] == (1.0 if d_p[valid].sum() >= 0 else -1.0)
+    assert (np.sign(d_p[valid & (np.abs(d_p) > 1e-6)]) == view["sgn"]).all()
 
 
 def test_analytic_view_detects_mixed_signs():
@@ -71,6 +54,9 @@ def test_analytic_view_detects_mixed_signs():
     u = _uniforms(cam)
     view = plan_mod.analyze_view(u, 64, 64)
     assert view is not None and view["mixed"]
+    # The device ray field agrees: no axis gives one slab order.
+    rays = make_rays(u, 64, 64)
+    assert all(sweep_mod.mixed_principal_signs(rays, p) for p in range(3))
 
 
 def test_analytic_view_no_coverage():
@@ -79,260 +65,3 @@ def test_analytic_view_no_coverage():
                              fovy_deg=40.0, aspect=1.0)
     u = _uniforms(cam)
     assert plan_mod.analyze_view(u, 64, 64) is None
-
-
-class TestSelectViewPlan:
-    """Cost-based axis/grid-family selection (sweep_pallas.select_view_plan).
-
-    The projective (Mobius) grid is a RESCUE for handover-band poses whose
-    uniform grid explodes; tame poses must keep the uniform grid (the
-    Mobius fit's clamped tail footprint forces short brick tiles — measured
-    +25 % sweep on the headline pose)."""
-
-    H, W = 1080, 1920
-
-    @staticmethod
-    def _setup(azimuth):
-        n = 512
-        cam = orbit_camera(radius=220.0, azimuth_deg=azimuth,
-                           elevation_deg=20, aspect=1920 / 1080)
-        node = math3d.scale((100.0 / n,) * 3)
-        img_t = math3d.scale((float(n),) * 3)
-        u = make_uniforms(cam, node, img_t, 50.0, (4.0, 4.0, 4.0))
-        shape_for = lambda p: (n, n, n)  # noqa: E731 — cubic volume
-        return u, shape_for
-
-    def test_tame_pose_keeps_uniform_grid(self):
-        u, shape_for = self._setup(azimuth=30.0)
-        view, pl = sp.select_view_plan(u, self.H, self.W, shape_for)
-        assert pl is not None and not view["mixed"]
-        assert pl.get("cu", 0.0) == 0.0 and pl.get("cv", 0.0) == 0.0
-        assert pl["tile_h"] >= 16
-        assert not pl.get("warp_xla")
-
-    @pytest.mark.parametrize("azimuth", [44.0, 46.0])
-    def test_handover_pose_gets_a_plan(self, azimuth):
-        # Near the 45-deg handover the dominant axis's uniform grid blows
-        # past the kernel footprint caps; selection must still deliver a
-        # Pallas-sweepable plan (runner-up axis and/or projective grid).
-        u, shape_for = self._setup(azimuth=azimuth)
-        view, pl = sp.select_view_plan(u, self.H, self.W, shape_for)
-        assert pl is not None and not view["mixed"]
-        # The winning plan must be bricked (the per-slab kernel at these
-        # grid sizes is the seconds-per-frame class the orbit cannot pay).
-        assert pl["R_brick"] is not None
-
-    def test_mobius_grid_params_cover_range_exactly(self):
-        import math
-        rng, f_lo, f_hi, N = 3.7, 0.002, 0.013, 1024.0
-        dw, c, dw_max = sp._mobius_grid_params(rng, f_lo, f_hi, N)
-        # w(N) - w(0) == rng (the grid covers the whole w-range).
-        w_end = dw * N / (1.0 - c * N)
-        assert w_end == pytest.approx(rng, rel=1e-9)
-        # Footprint at the dense end matches the fitted f_lo scaling and
-        # the max footprint bound dominates both ends.
-        s = rng / (N * math.sqrt(f_lo * f_hi))
-        assert dw == pytest.approx(s * f_lo, rel=1e-12)
-        fp_end = dw / (1.0 - c * N) ** 2
-        assert dw_max >= dw - 1e-15 and dw_max <= max(dw, fp_end) + 1e-12
-        # Uniform degeneration: f_lo == f_hi -> c == 0.
-        dw_u, c_u, _ = sp._mobius_grid_params(rng, f_lo, f_lo, N)
-        assert c_u == 0.0 and dw_u == pytest.approx(rng / N)
-
-
-def test_orbit_frozen_tiers_cover_every_pose():
-    """Orbit contract (bench.freeze_orbit_statics): under the frozen
-    envelope tiers every pose of the benchmark orbit must resolve a plan
-    (no pose may fall to the XLA sweep at seconds/frame), nearly all poses
-    must keep the Pallas warp, and the compile budget stays bounded (a
-    handful of tiers per axis group — each tier is a multi-minute remote
-    Mosaic compile on the real device)."""
-    from vkvolume_tpu.bench.harness import (benchmark_camera,
-                                            freeze_orbit_statics)
-    from vkvolume_tpu.engine import Engine, RenderOptions, from_array
-    from vkvolume_tpu.options import SkippingType, VolumeOptions
-
-    d = h = w = 416   # beetle-class extent ratio kept cubic for speed
-    vol = from_array(np.zeros((d, h, w), np.uint8),
-                     VolumeOptions(intensity_min=0.1), block_size=4)
-    vol.set_scale((100.0 / max(d, h, w),) * 3)
-    eng = Engine(RenderOptions(skipping_type=SkippingType.DISTANCE),
-                 renderer="pallas")
-    W, H = 1920, 1080
-    azs = [30 + 2 * i for i in range(51)]
-    cams = [benchmark_camera(W / H, azimuth=a) for a in azs]
-    force = freeze_orbit_statics(eng, vol, cams, W, H)
-    # Compile budget: one remote Mosaic compile per tier at orbit warm-up
-    # (outside the timed reps, amortised by the persistent compile cache).
-    # The round-4 over-sweep repair adds singleton tiers for poses that
-    # would otherwise escalate 1-2 bands up (≤8 per axis group).
-    assert sum(len(t) for t in force.values()) <= 16
-
-    def vshape(p):
-        return {2: (d, h, w), 1: (h, d, w), 0: (w, d, h)}[p]
-
-    pallas_warp = xla_warp = none_ct = 0
-    for cam in cams:
-        u = make_uniforms(cam, vol.node_transform, vol.image_transform,
-                          eng.options.clip_distance,
-                          np.asarray(vol.effective_block_size_xyz,
-                                     np.float32))
-        view, plan_u = sp.select_view_plan(u, H, W, vshape)
-        p = view["p_axis"]
-        tiers = force.get((p, plan_u["sgn_p"] if plan_u
-                           else view["sgn"])) or []
-        plan = plan_x = None
-        for f_ in tiers:
-            cand = sp.plan_from_stats(view, u, p, vshape(p), H, W,
-                                      force=f_)
-            if cand is None:
-                continue
-            if not cand.get("warp_xla"):
-                plan = cand
-                break
-            if plan_x is None:
-                plan_x = cand
-        plan = plan or plan_x or plan_u
-        if plan is None:
-            none_ct += 1
-        elif plan.get("warp_xla"):
-            xla_warp += 1
-        else:
-            pallas_warp += 1
-    assert none_ct == 0
-    # Every pose must keep a Pallas warp: the cross-band rect repair in
-    # freeze_orbit_statics grows a tier's rects (up to the full-source
-    # width) for poses whose own band rejects their grid — previously
-    # those fell to the ~100 ms XLA-gather warp (3/51 poses).
-    assert xla_warp == 0, (pallas_warp, xla_warp)
-
-
-def test_select_view_plan_forced_orbit_fast_path():
-    """Engine fast path for frozen orbits (sweep_pallas.
-    select_view_plan_forced): every pose of the benchmark orbit must
-    resolve to a forced Pallas-warp plan whose jit statics are drawn
-    VERBATIM from some frozen tier (a novel static would be a mid-orbit
-    multi-minute Mosaic compile — the failure mode the fast path must
-    never reintroduce while skipping the 25-60 ms unforced search)."""
-    from vkvolume_tpu.bench.harness import (benchmark_camera,
-                                            freeze_orbit_statics)
-    from vkvolume_tpu.engine import Engine, RenderOptions, from_array
-    from vkvolume_tpu.options import SkippingType, VolumeOptions
-
-    d = h = w = 416
-    vol = from_array(np.zeros((d, h, w), np.uint8),
-                     VolumeOptions(intensity_min=0.1), block_size=4)
-    vol.set_scale((100.0 / max(d, h, w),) * 3)
-    eng = Engine(RenderOptions(skipping_type=SkippingType.DISTANCE),
-                 renderer="pallas")
-    W, H = 1920, 1080
-    cams = [benchmark_camera(W / H, azimuth=30 + 2 * i) for i in range(51)]
-    force = freeze_orbit_statics(eng, vol, cams, W, H)
-
-    def vshape(p):
-        return {2: (d, h, w), 1: (h, d, w), 0: (w, d, h)}[p]
-
-    static_keys = {
-        (p, tier["Hi"], tier["Wi"], tier["R_sweep"], tier["tile_h"],
-         tier["R_brick"], tier["span_blks"], tier.get("rect_w", 256))
-        for (p, _), tiers in force.items() for tier in tiers}
-    unforced_falls = 0
-    for cam in cams:
-        u = make_uniforms(cam, vol.node_transform, vol.image_transform,
-                          eng.options.clip_distance,
-                          np.asarray(vol.effective_block_size_xyz,
-                                     np.float32))
-        view, plan = sp.select_view_plan_forced(u, H, W, vshape, force)
-        if plan is None:
-            # Handover-band pose outside every tier (the old tier loop
-            # likewise fell through to the unforced plan there): the
-            # engine falls back to the full search, which must still
-            # yield a Pallas-warp plan. Must stay rare — each such pose
-            # pays the full host search + one extra warm-up compile.
-            view_u, plan_u = sp.select_view_plan(u, H, W, vshape)
-            assert plan_u is not None and not plan_u.get("warp_xla"), cam
-            unforced_falls += 1
-            continue
-        assert not plan.get("warp_xla"), cam
-        key = (view["p_axis"], plan["Hi"], plan["Wi"], plan["R_sweep"],
-               plan["tile_h"], plan["R_brick"], plan["span_blks"],
-               plan.get("rect_w", 256))
-        assert key in static_keys, (key, sorted(static_keys))
-        # Warp rects likewise come from the tier set, or are disabled.
-        if plan["RECT_A"] is not None:
-            assert any(t.get("RECT_A") == plan["RECT_A"]
-                       and t.get("RECT_B") == plan["RECT_B"]
-                       for ts in force.values() for t in ts)
-        if plan["R_warp"] is not None:
-            assert any(t.get("R_warp") == plan["R_warp"]
-                       for ts in force.values() for t in ts)
-    assert unforced_falls <= 2, unforced_falls
-
-
-def test_prewarm_interactive_freezes_and_ladders():
-    """Interactive prewarm contract (Engine.prewarm_interactive): the GUI's
-    structural edits (spin/translate within the prewarm envelope, sampling
-    slider values) must all resolve against the frozen tiers with a BOUNDED
-    set of jit-static combinations — each distinct combination is a
-    multi-second Mosaic compile mid-edit on the real device
-    (VERDICT r4 weak #3: sampling/translate/spin edits cost 9-10 s)."""
-    from vkvolume_tpu.bench.harness import benchmark_camera
-    from vkvolume_tpu.engine import Engine, RenderOptions, from_array
-    from vkvolume_tpu.engine.engine import _ladder_up
-    from vkvolume_tpu.options import SkippingType, VolumeOptions
-
-    d = h = w = 128
-    rng = np.random.default_rng(0)
-    data = (rng.random((d, h, w)) * 255).astype(np.uint8)
-    vol = from_array(data, VolumeOptions(intensity_min=0.4), block_size=4)
-    vol.set_scale((100.0 / max(d, h, w),) * 3)
-    eng = Engine(RenderOptions(skipping_type=SkippingType.DISTANCE),
-                 renderer="pallas")
-    eng.add_volume(vol)
-    W, H = 256, 128
-    cam = benchmark_camera(W / H)
-    eng.prewarm_interactive(cam, W, H, sampling_tiers=(1.0,))
-    assert eng.plan_force, "prewarm must freeze envelope tiers"
-    assert eng._slab_ladder
-
-    # Transform state restored exactly.
-    assert np.allclose(vol.get_translation(), 0.0)
-
-    # Ladder: monotone, anchored (k=0 exact), bounded tier count over the
-    # GUI slider's span.
-    assert _ladder_up(100, 100) == 100
-    assert _ladder_up(101, 100) == 125
-    tiers = {_ladder_up(int(round(100 * s)), 100)
-             for s in np.arange(0.25, 4.01, 0.05)}
-    assert len(tiers) <= 14
-    for n, t in [(int(round(100 * s)), _ladder_up(int(round(100 * s)), 100))
-                 for s in np.arange(0.25, 4.01, 0.25)]:
-        assert t >= n
-
-    # Structural edits re-plan against the frozen tiers: spin/translate
-    # poses inside the envelope must resolve a forced plan (no fresh
-    # unforced specialisation).
-    from vkvolume_tpu.render import sweep_pallas as sp
-    from vkvolume_tpu.render.ray_setup import make_uniforms
-
-    def vshape(p):
-        return {2: (d, h, w), 1: (h, d, w), 0: (w, d, h)}[p]
-
-    t0 = vol.get_translation()
-    nt0 = np.asarray(vol.node_transform).copy()
-    base0 = getattr(vol, "_spin_base", None)
-    try:
-        for spin, tx in [(10.0, 0.0), (-15.0, 0.0), (0.0, 8.0),
-                         (5.0, -8.0)]:
-            vol.set_spin(np.deg2rad(spin))
-            vol.set_translation(t0 + np.asarray([tx, 0.0, 0.0]))
-            u = make_uniforms(cam, vol.node_transform, vol.image_transform,
-                              eng.options.clip_distance,
-                              np.asarray(vol.effective_block_size_xyz,
-                                         np.float32))
-            view, plan = sp.select_view_plan_forced(u, H, W, vshape,
-                                                    eng.plan_force)
-            assert plan is not None, (spin, tx)
-    finally:
-        vol.node_transform = nt0
-        vol._spin_base = base0

@@ -7,18 +7,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkvolume_tpu.accel import (
+from vkvolume.accel import (
     anisotropic_distance,
     gradient_map,
     isotropic_distance,
     occupancy_map,
 )
-from vkvolume_tpu.camera import orbit_camera, perspective_camera
-from vkvolume_tpu.options import SkippingType
-from vkvolume_tpu.options import Test as RT
-from vkvolume_tpu.render import make_rays, make_uniforms, march
-from vkvolume_tpu.tf import tf_params
-from vkvolume_tpu.utils import math3d
+from vkvolume.camera import orbit_camera, perspective_camera
+from vkvolume.options import SkippingType
+from vkvolume.options import Test as RT
+from vkvolume.render import make_rays, make_uniforms, march
+from vkvolume.tf import tf_params
+from vkvolume.utils import math3d
 
 from scalar_reference import march_ray
 from util import random_blob_volume, sphere_shell_volume
@@ -109,7 +109,7 @@ def test_clip_beyond_cube_invalidates():
 
 
 def test_exit_formula_matches_frag():
-    from vkvolume_tpu.render.ray_setup import ray_caster_get_back
+    from vkvolume.render.ray_setup import ray_caster_get_back
 
     front = jnp.asarray([0.2, 0.3, 1.0])
     d = jnp.asarray([0.1, 0.2, -0.97])
@@ -307,32 +307,3 @@ def test_first_hit_depth_written():
     assert hit.any()
     assert (depth[hit] > 0.0).all()
     assert (depth[~valid] == 0.0).all()
-
-
-def test_pad_viewport_ray_parity():
-    """camera.pad_viewport: the padded viewport's top-left window produces
-    pixel-identical rays (up to f32 rounding) — the engine relies on this to
-    run the tile-aligned Pallas pipeline on arbitrary image sizes."""
-    import numpy as np
-
-    from vkvolume_tpu.camera import orbit_camera, pad_viewport
-    from vkvolume_tpu.render import make_rays, make_uniforms
-    from vkvolume_tpu.utils import math3d
-
-    H, W, Hp, Wp = 50, 100, 56, 128
-    cam = orbit_camera(radius=150.0, azimuth_deg=25, elevation_deg=15,
-                       aspect=W / H)
-    cam2 = pad_viewport(cam, W, H, Wp, Hp)
-    node = math3d.scale((100.0 / 40,) * 3)
-    img_t = math3d.scale((40.0,) * 3)
-    u1 = make_uniforms(cam, node, img_t, 50.0, (4.0, 4.0, 4.0))
-    u2 = make_uniforms(cam2, node, img_t, 50.0, (4.0, 4.0, 4.0))
-    r1 = make_rays(u1, H, W)
-    r2 = make_rays(u2, Hp, Wp)
-    m = np.asarray(r1.valid)
-    assert m.any()
-    np.testing.assert_array_equal(m, np.asarray(r2.valid)[:H, :W])
-    for name in ("entry", "exit", "ray_dir"):
-        a = np.asarray(getattr(r1, name))
-        b = np.asarray(getattr(r2, name))[:H, :W]
-        assert np.abs(np.where(m[..., None], a - b, 0.0)).max() < 1e-5

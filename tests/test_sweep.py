@@ -1,19 +1,18 @@
-"""Plane-sweep renderer tests: XLA sweep vs the exact marcher, and the
-Pallas kernel (interpret mode) vs the XLA sweep."""
+"""Plane-sweep renderer tests: the XLA sweep against the reference-exact
+marcher, directly and through the engine, across ESS modes, early ray
+termination, views and TF kinds."""
 
-import jax
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkvolume_tpu.accel import isotropic_distance, occupancy_map
-from vkvolume_tpu.camera import orbit_camera
-from vkvolume_tpu.options import SkippingType
-from vkvolume_tpu.options import Test as RT
-from vkvolume_tpu.render import make_rays, make_uniforms
-from vkvolume_tpu.render import sweep as sweep_mod
-from vkvolume_tpu.tf import tf_params
-from vkvolume_tpu.utils import math3d
+from vkvolume.camera import perspective_camera
+from vkvolume.engine import Engine, RenderOptions, VolumeOptions, from_array
+from vkvolume.options import SkippingType
+from vkvolume.options import Test as RT
+from vkvolume.render import sweep as sweep_mod
 
 from test_render import _march, _setup
 from util import sphere_shell_volume
@@ -52,339 +51,85 @@ def test_sweep_slab_skip_is_exact():
                                np.asarray(without.color), atol=1e-6)
 
 
-def _pallas_setup(eye=(0.0, 0.0, 8.0)):
-    """Tiny zoomed-in geometry satisfying the kernel footprint limits
-    (texels-per-pixel < 1 along both slice axes)."""
-    from vkvolume_tpu.camera import perspective_camera
-
-    D, Hs, Ws = 16, 32, 256
-    z, y, x = np.mgrid[0:D, 0:Hs, 0:Ws].astype(np.float32)
-    vol = np.clip(
-        140 * np.exp(-(((x - 128) / 18) ** 2 + ((y - 16) / 6) ** 2
-                       + ((z - 8) / 2.5) ** 2))
-        + 120 * np.exp(-(((x - 80) / 6) ** 2 + ((y - 12) / 4) ** 2
-                         + ((z - 5) / 2) ** 2)),
-        0, 255,
-    ).astype(np.uint8)
-    H, W = 32, 128
-    node = math3d.scale((100.0 / 256,) * 3)
-    img_t = math3d.scale((float(Ws), float(Hs), float(D)))
-    cam = perspective_camera(eye=eye, center=(0, 0, 0), fovy_deg=25.0,
-                             aspect=W / H)
-    tf = tf_params(intensity_min=0.3, gradient_min=0.0, gradient_max=0.0)
-    u = make_uniforms(cam, node, img_t, 1.0, (4.0, 4.0, 4.0))
-    rays = make_rays(u, H, W)
-    mz, my, mx = -(-D // 4), -(-Hs // 4), -(-Ws // 4)
-    occ = occupancy_map(jnp.asarray(vol), None, tf, (mz, my, mx))
-    pvm = jnp.asarray(
-        (cam.proj.astype(np.float64) @ cam.view.astype(np.float64)
-         @ (node @ img_t).astype(np.float64)).astype(np.float32)
-    )
-    return vol, tf, u, rays, occ, pvm
+# Eyes ~220 world units from a 100-unit volume: along +z and -z, along +x,
+# and two diagonal eyes whose rays are strongly oblique to the slab axis.
+VIEWS = {
+    "+z": (20.0, 12.0, 220.0),
+    "-z": (-15.0, 18.0, -220.0),
+    "+x": (220.0, 15.0, 10.0),
+    "diag+x": (121.0, 33.0, 176.0),
+    "diag-x": (-99.0, 55.0, 176.0),
+}
+_N = 32          # volume extent (voxels per axis)
+_PX = 32         # image extent (pixels per axis)
 
 
+def _scene_engine(renderer, skipping, *, gradient=False, texture=False):
+    vol = sphere_shell_volume(_N)
+    opts = VolumeOptions(intensity_min=0.1,
+                         gradient_min=0.05 if gradient else 0.0,
+                         gradient_max=0.5 if gradient else 0.0)
+    eng = Engine(RenderOptions(skipping_type=skipping, texture_tf=texture),
+                 renderer=renderer)
+    v = from_array(vol, opts, block_size=4)
+    v.set_scale((100.0 / _N,) * 3)
+    eng.add_volume(v)
+    return eng
+
+
+def _camera(view):
+    return perspective_camera(eye=VIEWS[view], center=(0.0, 0.0, 0.0),
+                              fovy_deg=40.0, aspect=1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _oracle(view, ert, gradient=False, texture=False):
+    """Marcher image without ESS: skipping is exact in the marcher, so one
+    oracle per (view, ERT, TF) serves every ESS mode of the sweep."""
+    eng = _scene_engine("marcher", SkippingType.NONE, gradient=gradient,
+                        texture=texture)
+    eng.options.early_ray_termination = ert
+    return np.asarray(eng.render(_camera(view), _PX, _PX).color)
+
+
+def _sweep_image(view, skipping, ert, *, gradient=False, texture=False):
+    eng = _scene_engine("sweep", skipping, gradient=gradient, texture=texture)
+    eng.options.early_ray_termination = ert
+    got = np.asarray(eng.render(_camera(view), _PX, _PX).color)
+    assert eng.last_renderer == "sweep"
+    return got
+
+
+@pytest.mark.parametrize("view", list(VIEWS))
 @pytest.mark.parametrize("ert", [True, False])
-@pytest.mark.parametrize("eye_z", [8.0, -8.0])
-def test_pallas_kernel_matches_xla_sweep_interpret(ert, eye_z):
-    from vkvolume_tpu.render.sweep_pallas import sweep_pallas
-
-    vol, tf, u, rays, occ, pvm = _pallas_setup(eye=(0.3, 0.2, eye_z))
-    p = sweep_mod.principal_axis(rays)
-    vol_t = sweep_mod.transpose_for_axis(jnp.asarray(vol), p)
-    occ_t = sweep_mod.transpose_for_axis(occ, p)
-
-    ref = sweep_mod.sweep(vol_t, None, occ_t, tf, rays, u, pvm, p_axis=p,
-                          skipping=True, early_ray_termination=ert)
-    out = sweep_pallas(vol_t, occ_t, tf, rays, u, pvm, p_axis=p, ert=ert,
-                       interpret=True)
-    ref_c = np.asarray(ref.color)
-    got_c = np.asarray(out.color)
-    assert np.abs(got_c - ref_c).max() < 1e-4
-    np.testing.assert_allclose(np.asarray(out.depth), np.asarray(ref.depth),
-                               atol=1e-5)
+@pytest.mark.parametrize("skipping", list(SkippingType))
+def test_engine_sweep_matches_marcher(skipping, ert, view):
+    """Every ESS mode (none, block, distance, anisotropic distance with the
+    per-cell octant stitch) with and without early ray termination, from
+    axis-aligned and diagonal eyes. Slab skipping is exact, so the image
+    equals the sweep's own without ESS; and it stays within slab
+    resampling tolerance of the reference-exact march."""
+    got = _sweep_image(view, skipping, ert)
+    if skipping != SkippingType.NONE:
+        np.testing.assert_allclose(
+            got, _sweep_image(view, SkippingType.NONE, ert), atol=1e-6)
+    ref = _oracle(view, ert)
+    assert ref[..., 3].max() > 0.3                 # non-trivial content
+    assert np.abs(got - ref).max() < 0.04
+    assert abs(got[..., 3].mean() - ref[..., 3].mean()) < 1e-3
 
 
-@pytest.mark.parametrize("ert", [True, False])
-def test_pallas_distance_leap_matches_xla_sweep(ert):
-    """Chebyshev distance-map leaping in the slab skip loop must not change
-    the image (leaps only cross slabs whose footprint is provably empty)."""
-    from vkvolume_tpu.render.sweep_pallas import sweep_pallas
-
-    vol, tf, u, rays, occ, pvm = _pallas_setup(eye=(0.3, 0.2, 8.0))
-    p = sweep_mod.principal_axis(rays)
-    vol_t = sweep_mod.transpose_for_axis(jnp.asarray(vol), p)
-    dist = isotropic_distance(occ)
-    dist_t = sweep_mod.transpose_for_axis(dist, p)
-    occ_t = sweep_mod.transpose_for_axis(occ, p)
-
-    ref = sweep_mod.sweep(vol_t, None, occ_t, tf, rays, u, pvm, p_axis=p,
-                          skipping=True, early_ray_termination=ert)
-    out = sweep_pallas(vol_t, dist_t, tf, rays, u, pvm, p_axis=p, ert=ert,
-                       interpret=True, dist_leap=True)
-    assert np.abs(np.asarray(out.color) - np.asarray(ref.color)).max() < 1e-4
-    # the leap must actually visit fewer slabs than stepping (sanity that the
-    # test exercises leaping at all): compare against non-leaping run
-    out_occ = sweep_pallas(vol_t, occ_t, tf, rays, u, pvm, p_axis=p, ert=ert,
-                           interpret=True, dist_leap=False)
-    np.testing.assert_allclose(np.asarray(out.color),
-                               np.asarray(out_occ.color), atol=1e-4)
-
-
-def test_render_frame_separable_matches_xla_sweep():
-    """The fused w-grid frame (separable Pallas sampling + warp) against the
-    XLA sweep on the same rays — resampling tolerance."""
-    from vkvolume_tpu.render.sweep_pallas import render_frame
-
-    vol = sphere_shell_volume(40)
-    tf = tf_params(intensity_min=0.1, gradient_min=0.0, gradient_max=0.0)
-    n = 40
-    node = math3d.scale((100.0 / n,) * 3)
-    img_t = math3d.scale((float(n),) * 3)
-    cam = orbit_camera(radius=150.0, azimuth_deg=25, elevation_deg=15,
-                       aspect=128 / 32)
-    u = make_uniforms(cam, node, img_t, 50.0, (4.0, 4.0, 4.0))
-    H, W = 32, 128
-    rays = make_rays(u, H, W)
-    m = -(-n // 4)
-    occ = occupancy_map(jnp.asarray(vol), None, tf, (m, m, m))
-    dist = isotropic_distance(occ)
-    pvm = jnp.asarray(
-        (cam.proj.astype(np.float64) @ cam.view.astype(np.float64)
-         @ (node @ img_t).astype(np.float64)).astype(np.float32))
-
-    p = sweep_mod.principal_axis(rays)
-    vol_t = sweep_mod.transpose_for_axis(jnp.asarray(vol), p)
-    occ_t = sweep_mod.transpose_for_axis(occ, p)
-    dist_t = sweep_mod.transpose_for_axis(dist, p)
-
-    ref = sweep_mod.sweep(vol_t, None, occ_t, tf, rays, u, pvm, p_axis=p,
-                          skipping=True, early_ray_termination=True)
-    out = render_frame(vol_t, dist_t, tf, rays, u, pvm, p_axis=p, ert=True,
-                       interpret=True, dist_leap=True)
-    ref_c = np.asarray(ref.color)
-    got_c = np.asarray(out.color)
-    assert ref_c[..., 3].max() > 0.3            # non-trivial content
-    # w-grid resample tolerance: a handful of shell-edge pixels may shift
-    # by a few LSB (the separable sampling itself is exact vs the general
-    # path; see test history), so bound the distribution, not the max.
-    diff = np.abs(got_c - ref_c)
-    assert (diff > 0.06).mean() < 0.01
-    assert abs(got_c[..., 3].mean() - ref_c[..., 3].mean()) < 5e-3
-
-
-def test_pallas_unsupported_raises():
-    from vkvolume_tpu.render.sweep_pallas import PallasUnsupported, sweep_pallas
-
-    vol, tf, u, rays, occ, pvm = _pallas_setup()
-    p = sweep_mod.principal_axis(rays)
-    # Degenerate volume (single plane along the principal axis).
-    tiny = jnp.zeros((1, 2, 2), jnp.uint8)
-    with pytest.raises(PallasUnsupported):
-        sweep_pallas(tiny, None, tf, rays, u, pvm, p_axis=p, interpret=True)
-    # Non-tile-aligned image raises in render_frame.
-    from vkvolume_tpu.render.sweep_pallas import render_frame
-
-    import dataclasses as _dc
-    bad_rays = jax.tree.map(lambda x: x[:30], rays)
-    with pytest.raises(PallasUnsupported):
-        render_frame(jnp.zeros((8, 32, 256), jnp.uint8), None, tf, bad_rays,
-                     u, pvm, p_axis=p, interpret=True)
-
-
-def test_pallas_gradient_tf_matches_xla_sweep():
-    """Gradient-modulated TF through the Pallas kernel (interpret mode)."""
-    from vkvolume_tpu.accel import gradient_map
-    from vkvolume_tpu.render.sweep_pallas import sweep_pallas
-
-    vol, _, u, rays, _, pvm = _pallas_setup(eye=(0.3, 0.2, 8.0))
-    tf = tf_params(intensity_min=0.2, gradient_min=0.05, gradient_max=0.4)
-    p = sweep_mod.principal_axis(rays)
-    vol_t = sweep_mod.transpose_for_axis(jnp.asarray(vol), p)
-    grad = gradient_map(jnp.asarray(vol), 1.0, use_gradient=True)
-    grad_t = sweep_mod.transpose_for_axis(grad, p)
-    D, Hs, Ws = vol.shape
-    occ = occupancy_map(jnp.asarray(vol), grad, tf,
-                        (-(-D // 4), -(-Hs // 4), -(-Ws // 4)))
-    occ_t = sweep_mod.transpose_for_axis(occ, p)
-
-    ref = sweep_mod.sweep(vol_t, grad_t, occ_t, tf, rays, u, pvm, p_axis=p,
-                          skipping=True, early_ray_termination=True)
-    out = sweep_pallas(vol_t, occ_t, tf, rays, u, pvm, grad_t, p_axis=p,
-                       ert=True, interpret=True)
-    ref_c = np.asarray(ref.color)
-    got_c = np.asarray(out.color)
-    assert ref_c[..., 3].max() > 0.05          # non-trivial content
-    assert np.abs(got_c - ref_c).max() < 1e-4
-
-
-@pytest.mark.parametrize("eye", [(5.5, 1.5, 8.0), (-4.5, 2.5, 8.0)])
-def test_pallas_distance_leap_diagonal_view(eye):
-    """Diagonal views (|wu| ~ 0.6-0.7): leap drift across map planes is the
-    regime where an under-dilated culling window can skip occupied cells
-    (round-2 review finding). Leaping must still not change the image."""
-    from vkvolume_tpu.render.sweep_pallas import PallasUnsupported, sweep_pallas
-
-    vol, tf, u, rays, occ, pvm = _pallas_setup(eye=eye)
-    p = sweep_mod.principal_axis(rays)
-    vol_t = sweep_mod.transpose_for_axis(jnp.asarray(vol), p)
-    dist = isotropic_distance(occ)
-    dist_t = sweep_mod.transpose_for_axis(dist, p)
-    occ_t = sweep_mod.transpose_for_axis(occ, p)
-    try:
-        out = sweep_pallas(vol_t, dist_t, tf, rays, u, pvm, p_axis=p,
-                           ert=False, interpret=True, dist_leap=True)
-    except PallasUnsupported:
-        pytest.skip("view exceeds kernel footprint limits at this geometry")
-    ref = sweep_mod.sweep(vol_t, None, occ_t, tf, rays, u, pvm, p_axis=p,
-                          skipping=True, early_ray_termination=False)
-    assert np.asarray(ref.color)[..., 3].max() > 0.05
-    assert np.abs(np.asarray(out.color) - np.asarray(ref.color)).max() < 1e-4
-
-
-def _frame_setup(azimuth, *, gradient=False, n=40):
-    """Volume + camera + transposed arrays for a render_frame call."""
-    from vkvolume_tpu.accel import gradient_map
-
-    vol = sphere_shell_volume(n)
-    if gradient:
-        tf = tf_params(intensity_min=0.1, gradient_min=0.05, gradient_max=0.6)
-        grad = gradient_map(jnp.asarray(vol), 1.0, use_gradient=True)
-    else:
-        tf = tf_params(intensity_min=0.1, gradient_min=0.0, gradient_max=0.0)
-        grad = None
-    node = math3d.scale((100.0 / n,) * 3)
-    img_t = math3d.scale((float(n),) * 3)
-    cam = orbit_camera(radius=150.0, azimuth_deg=azimuth, elevation_deg=15,
-                      aspect=128 / 32)
-    u = make_uniforms(cam, node, img_t, 50.0, (4.0, 4.0, 4.0))
-    rays = make_rays(u, 32, 128)
-    m = -(-n // 4)
-    occ = occupancy_map(jnp.asarray(vol), grad, tf, (m, m, m))
-    dist = isotropic_distance(occ)
-    pvm = jnp.asarray(
-        (cam.proj.astype(np.float64) @ cam.view.astype(np.float64)
-         @ (node @ img_t).astype(np.float64)).astype(np.float32))
-    p = sweep_mod.principal_axis(rays)
-    vol_t = sweep_mod.transpose_for_axis(jnp.asarray(vol), p)
-    grad_t = (sweep_mod.transpose_for_axis(grad, p)
-              if grad is not None else None)
-    dist_t = sweep_mod.transpose_for_axis(dist, p)
-    return vol_t, grad_t, dist_t, tf, rays, u, pvm, p
-
-
-@pytest.mark.parametrize("azimuth,gradient,oversample", [
-    (25.0, False, 1.0),     # sgn > 0, aligned
-    (205.0, False, 1.0),    # sgn < 0, aligned
-    (25.0, True, 1.0),      # gradient-modulated TF
-    (25.0, False, 1.5),     # non-aligned (plane-pair lerp path)
-    (25.0, True, 1.68),     # gradient TF at the dim_max-matched density
-                            # (slab_density="auto" production class)
-])
-def test_brick_kernel_matches_per_slab(monkeypatch, azimuth, gradient,
-                                       oversample):
-    """sweep_bricks (brick-batched slab loop) against the round-2 per-slab
-    separable kernel: identical sampling arithmetic, so outputs match to
-    float tolerance; sampled-slab sets may differ only on slabs whose
-    windows are empty (which contribute zero alpha for monotone TFs)."""
-    from vkvolume_tpu.render.sweep_pallas import render_frame
-
-    vol_t, grad_t, dist_t, tf, rays, u, pvm, p = _frame_setup(
-        azimuth, gradient=gradient)
-
-    out_brick = render_frame(vol_t, dist_t, tf, rays, u, pvm, grad_t,
-                             p_axis=p, ert=True, interpret=True,
-                             dist_leap=True, oversample=oversample)
-    monkeypatch.setenv("VKV_NO_BRICK", "1")
-    out_slab = render_frame(vol_t, dist_t, tf, rays, u, pvm, grad_t,
-                            p_axis=p, ert=True, interpret=True,
-                            dist_leap=True, oversample=oversample)
-    b = np.asarray(out_brick.color)
-    s = np.asarray(out_slab.color)
-    assert s[..., 3].max() > 0.3           # non-trivial content
-    tol = 2e-3 if gradient else 1e-4
-    assert np.abs(b - s).max() < tol, np.abs(b - s).max()
-    np.testing.assert_allclose(np.asarray(out_brick.depth),
-                               np.asarray(out_slab.depth), atol=1e-3)
-
-
-def test_brick_texture_tf_matches_xla_texture_path():
-    """TRANSFER_FUNCTION_TEXTURE through the brick kernel: the in-kernel
-    quantised closed form must reproduce the XLA sweep's NEAREST texture
-    lookup of the baked 256×256 texture (transfer_function.glsl:36-38)."""
-    from vkvolume_tpu.render.sweep_pallas import render_frame
-    from vkvolume_tpu.tf import bake_texture
-
-    vol_t, grad_t, dist_t, tf, rays, u, pvm, p = _frame_setup(
-        25.0, gradient=True)
-    tex = jnp.asarray(bake_texture(
-        intensity_min=0.1, intensity_max=1.0,
-        gradient_min=0.05, gradient_max=0.6))
-
-    out_tex = render_frame(vol_t, dist_t, tf, rays, u, pvm, grad_t,
-                           p_axis=p, ert=True, interpret=True,
-                           dist_leap=True, texture_tf=True)
-    ref = sweep_mod.sweep(vol_t, grad_t, dist_t, tf, rays, u, pvm,
-                          p_axis=p, skipping=True,
-                          early_ray_termination=True, tf_texture=tex)
-    got = np.asarray(out_tex.color)
-    want = np.asarray(ref.color)
-    assert want[..., 3].max() > 0.2
-    # w-grid resample tolerance (same class as the non-texture frame test).
-    diff = np.abs(got - want)
-    assert (diff > 0.06).mean() < 0.01, diff.max()
-    assert abs(got[..., 3].mean() - want[..., 3].mean()) < 5e-3
-    # And the quantisation itself must differ from the closed form (i.e. the
-    # kernel is actually on the texture path).
-    out_cf = render_frame(vol_t, dist_t, tf, rays, u, pvm, grad_t,
-                          p_axis=p, ert=True, interpret=True,
-                          dist_leap=True, texture_tf=False)
-    assert np.abs(np.asarray(out_cf.color) - got).max() > 1e-5
-
-
-@pytest.mark.parametrize("prec", ["high", "default", "split3"])
-def test_brick_tent_precision_knob(prec):
-    """tent_prec threads through to the tent dot (bench A/B knob): reduced
-    MXU precision must trace/run and stay within u8-class tolerance of the
-    HIGHEST-precision render (exact on CPU where dots are true f32; on
-    device "high" is bf16x3 — error far below 1 u8 LSB for <=8-significant-
-    bit inputs). "split3" performs the bf16x3 split explicitly (Mosaic
-    rejects the HIGH enum) so its error bound holds on EVERY backend —
-    the casts are real even on CPU, pinning the ≤0.002-LSB residual."""
-    from vkvolume_tpu.render import sweep_bricks as sb
-
-    vol_t, grad_t, dist_t, tf, rays, u, pvm, p = _frame_setup(25.0)
-    kw = dict(p_axis=p, R=24, ert=True, test=None, count_samples=False,
-              n_slabs=vol_t.shape[0], sgn=1, tile_h=8, span_blks=2,
-              interpret=True, dist_leap=True)
-    ref = sb._sweep_bricks_jit(vol_t, dist_t, tf, rays, u, pvm, None,
-                               tent_prec="highest", **kw)
-    out = sb._sweep_bricks_jit(vol_t, dist_t, tf, rays, u, pvm, None,
-                               tent_prec=prec, **kw)
-    r = np.asarray(ref.color)
-    assert r[..., 3].max() > 0.3
-    assert np.abs(np.asarray(out.color) - r).max() < 2.0 / 255.0
-
-
-@pytest.mark.parametrize("rect_w", [384, 512])
-def test_brick_wide_rect_matches_default(rect_w):
-    """rect_w = 384/512 (the plan's cap-relief rescue for kernel-cap-
-    inflated grids) must sample identically to the 256-lane rect — only
-    the window/DMA geometry changes, never the sampled values."""
-    from vkvolume_tpu.render import sweep_bricks as sb
-
-    vol_t, grad_t, dist_t, tf, rays, u, pvm, p = _frame_setup(25.0)
-    kw = dict(p_axis=p, R=24, ert=True, test=None, count_samples=False,
-              n_slabs=vol_t.shape[0], sgn=1, tile_h=8, span_blks=2,
-              interpret=True, dist_leap=True)
-    ref = sb._sweep_bricks_jit(vol_t, dist_t, tf, rays, u, pvm, None,
-                               rect_w=256, **kw)
-    out = sb._sweep_bricks_jit(vol_t, dist_t, tf, rays, u, pvm, None,
-                               rect_w=rect_w, **kw)
-    r = np.asarray(ref.color)
-    assert r[..., 3].max() > 0.3
-    np.testing.assert_allclose(np.asarray(out.color), r, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(out.depth),
-                               np.asarray(ref.depth), atol=1e-6)
+@pytest.mark.parametrize("tf_kind", ["gradient", "texture"])
+def test_engine_sweep_matches_marcher_tf_kinds(tf_kind):
+    """Gradient-modulated closed-form TF and the baked-texture TF
+    (TRANSFER_FUNCTION_TEXTURE) through the sweep, anisotropic ESS."""
+    kw = dict(gradient=True, texture=tf_kind == "texture")
+    got = _sweep_image("diag+x", SkippingType.ANISOTROPIC_DISTANCE, True,
+                       **kw)
+    ref = _oracle("diag+x", True, **kw)
+    assert ref[..., 3].max() > 0.1
+    assert np.abs(got - ref).max() < 0.04
+    assert abs(got[..., 3].mean() - ref[..., 3].mean()) < 1e-3
 
 
 def test_grad_tf_parity_density():
@@ -395,8 +140,8 @@ def test_grad_tf_parity_density():
     beetle-grad pixels (>8/255); at the dim_max density it matches
     everywhere. Both facts are pinned here: the default closes the gap AND
     slab_density="axis" still reproduces it (cause, not coincidence)."""
-    from vkvolume_tpu.bench.datasets import DATASETS, synthesize
-    from vkvolume_tpu.bench.harness import benchmark_camera, make_engine
+    from vkvolume.bench.datasets import DATASETS, synthesize
+    from vkvolume.bench.harness import benchmark_camera, make_engine
 
     vol = synthesize(DATASETS["beetle-grad"], seed=0, scale=0.2)
     cam = benchmark_camera(aspect=480 / 272)
@@ -412,7 +157,7 @@ def test_grad_tf_parity_density():
     cm = render("marcher")
     cov = cm[..., 3] > 1 / 255
 
-    cp = render("pallas")                     # default: "auto" → dim_max
+    cp = render("sweep")                     # default: "auto" → dim_max
     bad = (np.abs(cp - cm).max(-1) > 8 / 255) & (cov | (cp[..., 3] > 1 / 255))
     assert cov.sum() > 5000                   # non-trivial frame
     # ≤0.05 % of covered pixels (the v5 synthetic's band-limited texture
@@ -421,7 +166,7 @@ def test_grad_tf_parity_density():
     assert bad.sum() <= max(2, 5e-4 * cov.sum()), (
         f"{bad.sum()} pixels >8/255 at ref density")
 
-    cp_axis = render("pallas", density="axis")
+    cp_axis = render("sweep", density="axis")
     bad_axis = (np.abs(cp_axis - cm).max(-1) > 8 / 255) \
         & (cov | (cp_axis[..., 3] > 1 / 255))
     assert bad_axis.sum() > 0.1 * cov.sum(), (
@@ -433,13 +178,13 @@ def test_grad_density_mult_sharp_shells():
     """RenderOptions.grad_density_mult: on SHARP shell content (present-grad
     under the v5 band-limited synthetics) exactly the reference's step
     density still under-integrates the shells — a uniform small-amplitude
-    alpha deficit across all ray obliquities (round-4 device parity: 9.5 %
-    of covered pixels >8/255; scripts/density_sweep.py convergence curve:
-    6.9 % → 0.72 % from 1× → 2× ref density at quarter scale). Pins both
+    alpha deficit across all ray obliquities (convergence curve: 6.9 % →
+    0.72 % of covered pixels >8/255 from 1× → 2× ref density at quarter
+    scale). Pins both
     directions: the auto default (2×) closes the gap, and mult=1 still
     reproduces it (cause, not coincidence)."""
-    from vkvolume_tpu.bench.datasets import DATASETS, synthesize
-    from vkvolume_tpu.bench.harness import benchmark_camera, make_engine
+    from vkvolume.bench.datasets import DATASETS, synthesize
+    from vkvolume.bench.harness import benchmark_camera, make_engine
 
     vol = synthesize(DATASETS["present-grad"], seed=0, scale=0.2)
     cam = benchmark_camera(aspect=480 / 272)
@@ -456,14 +201,14 @@ def test_grad_density_mult_sharp_shells():
     cov = cm[..., 3] > 1 / 255
     assert cov.sum() > 5000
 
-    cp = render("pallas")                     # default: auto → 2× dim_max
+    cp = render("sweep")                     # default: auto → 2× dim_max
     bad = (np.abs(cp - cm).max(-1) > 8 / 255) & (cov | (cp[..., 3] > 1 / 255))
     # ≤1.2 % of covered pixels: the 2× density plateau (the residual is
     # the grazing-ray class that edge_repair re-marches).
     assert bad.sum() <= 0.012 * cov.sum(), (
         f"{bad.sum()}/{cov.sum()} covered pixels >8/255 at 2× ref density")
 
-    cp1 = render("pallas", mult=1.0)
+    cp1 = render("sweep", mult=1.0)
     bad1 = (np.abs(cp1 - cm).max(-1) > 8 / 255) \
         & (cov | (cp1[..., 3] > 1 / 255))
     assert bad1.sum() > 3 * max(bad.sum(), 1), (

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkvolume_tpu.tf import bake_texture, get_alpha, sample_texture, tf_params
+from vkvolume.tf import bake_texture, get_alpha, sample_texture, tf_params
 
 
 def test_closed_form_basic():

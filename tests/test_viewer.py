@@ -1,4 +1,4 @@
-"""Interactive viewer (vkvolume_tpu/viewer.py): the reference's GUI loop
+"""Interactive viewer (vkvolume/viewer.py): the reference's GUI loop
 (slider edit → map rebuild → re-render) served over HTTP. Drives the real
 server end-to-end: page, frame fetches with TF edits, stats endpoint."""
 
@@ -9,9 +9,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from vkvolume_tpu.engine import Engine, RenderOptions, SkippingType, \
+from vkvolume.engine import Engine, RenderOptions, SkippingType, \
     VolumeOptions, from_array
-from vkvolume_tpu.viewer import ViewerServer
+from vkvolume.viewer import ViewerServer
 
 from util import sphere_shell_volume
 
